@@ -6,10 +6,10 @@ set -euo pipefail
 cd "$(dirname "$0")"
 
 echo "== syntax check =="
-python -m compileall -q spalinalg_tpu tests bench.py __graft_entry__.py
+python -m compileall -q spalinalg tests bench.py __graft_entry__.py
 
 echo "== native library =="
-make -C spalinalg_tpu/native >/dev/null || echo "  (native build unavailable — NumPy fallbacks active)"
+make -C spalinalg/native >/dev/null || echo "  (native build unavailable — NumPy fallbacks active)"
 
 echo "== unit + distributed tests (8-device CPU) =="
 python -m pytest tests/ -q

@@ -7,7 +7,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from spalinalg_tpu import CooMatrix, CsrMatrix
+from spalinalg import CooMatrix, CsrMatrix
 
 
 def _csr(rng, n, m, density=0.2):
@@ -54,7 +54,7 @@ class TestGradSpmv:
 
 class TestGradSpgemm:
     def test_grad_through_numeric_phase(self, rng):
-        from spalinalg_tpu import spgemm_apply, spgemm_plan
+        from spalinalg import spgemm_apply, spgemm_plan
 
         a, da = _csr(rng, 6, 6)
         b, db = _csr(rng, 6, 6)

@@ -6,8 +6,8 @@ import scipy.sparse as sps
 
 import jax.numpy as jnp
 
-from spalinalg_tpu import BsrMatrix, CooMatrix, CsrMatrix
-from spalinalg_tpu.errors import ShapeError
+from spalinalg import BsrMatrix, CooMatrix, CsrMatrix
+from spalinalg.errors import ShapeError
 
 
 def _bsr(rng, n=32, m=48, bs=8, density=0.15):

@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from spalinalg_tpu import CooMatrix, CscMatrix, CsrMatrix
-from spalinalg_tpu.utils.checks import checked_structure, determinism_audit
+from spalinalg import CooMatrix, CscMatrix, CsrMatrix
+from spalinalg.utils.checks import checked_structure, determinism_audit
 
 
 class TestCheckedStructure:

@@ -6,7 +6,7 @@ cancellation (`csr/conv/coo.rs:129-146`)."""
 import numpy as np
 import pytest
 
-from spalinalg_tpu import CooMatrix, CscMatrix, CsrMatrix, DokMatrix
+from spalinalg import CooMatrix, CscMatrix, CsrMatrix, DokMatrix
 
 
 def dense_of(mat):
@@ -115,14 +115,14 @@ class TestCooDokConversions:
         # dok.rs:659-661: the only other dedup point
         coo = CooMatrix.with_entries(2, 2, [(0, 0, 1.0), (0, 0, 2.0)])
         dok = DokMatrix.with_entries(2, 2, [])
-        from spalinalg_tpu.convert.conversions import coo_to_dok
+        from spalinalg.convert.conversions import coo_to_dok
         dok = coo_to_dok(coo)
         assert dok.length == 1
         assert dok.get(0, 0) == 3.0
 
     def test_dok_to_coo(self):
         dok = DokMatrix.with_entries(2, 2, [(0, 1, 2.0), (1, 0, 3.0)])
-        from spalinalg_tpu.convert.conversions import dok_to_coo
+        from spalinalg.convert.conversions import dok_to_coo
         coo = dok_to_coo(dok)
         assert coo.length == 2
         np.testing.assert_array_equal(coo.to_dense(), dok.to_dense())

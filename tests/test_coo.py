@@ -5,7 +5,7 @@ validation-by-exception, exact-behavior cases, plus the COO op semantics
 import numpy as np
 import pytest
 
-from spalinalg_tpu import CooMatrix, IndexError_, ShapeError
+from spalinalg import CooMatrix, IndexError_, ShapeError
 
 
 class TestConstructors:
@@ -158,7 +158,7 @@ class TestOps:
 
 
 class TestBulkPaths:
-    """VERDICT r1 item 9: bulk host paths must handle 1M entries fast."""
+    """bulk host paths must handle 1M entries fast."""
 
     def test_extend_1m_under_1s(self):
         import time

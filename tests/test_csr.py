@@ -6,7 +6,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from spalinalg_tpu import CscMatrix, CsrMatrix, ShapeError, StructureError
+from spalinalg import CscMatrix, CsrMatrix, ShapeError, StructureError
 
 
 # The 4x4 example from the reference docs (csr.rs:24-63):
@@ -191,7 +191,7 @@ class TestAstype:
         assert c.dtype.name == "bfloat16"
 
     def test_rejects_outside_scalar_set(self):
-        from spalinalg_tpu.errors import DTypeError
+        from spalinalg.errors import DTypeError
 
         with pytest.raises(DTypeError):
             CsrMatrix.eye(3).astype("int32")

@@ -4,7 +4,7 @@ import numpy as np
 
 import jax
 
-from spalinalg_tpu import CooMatrix, DeviceCoo
+from spalinalg import CooMatrix, DeviceCoo
 
 
 def test_roundtrip(rng):
@@ -23,7 +23,7 @@ def test_to_csr_device_matches_host(rng):
         (2, 2, 4.0), (0, 0, 1.0), (0, 0, 2.0), (1, 1, 0.0),
         (3, 3, 5.0), (3, 3, -5.0), (0, 2, 7.0),
     ])
-    from spalinalg_tpu import CsrMatrix
+    from spalinalg import CsrMatrix
 
     host = CsrMatrix.from_coo(coo)
     dev = coo.to_device().to_csr_device()

@@ -7,8 +7,8 @@ import scipy.sparse as sps
 import jax
 import jax.numpy as jnp
 
-from spalinalg_tpu import CooMatrix, CsrMatrix, DiaMatrix
-from spalinalg_tpu.errors import ShapeError
+from spalinalg import CooMatrix, CsrMatrix, DiaMatrix
+from spalinalg.errors import ShapeError
 
 
 def _tridiag(n):
@@ -108,50 +108,81 @@ def test_from_csr_rejects_scattered(rng):
 
 
 # ---------------------------------------------------------------------
-# Streaming Pallas kernel (ops/kernels/dia_stream) — interpret mode
-# replays the exact kernel math on CPU.
+# SpMV against scipy's column-aligned dia_matrix: square, wide and tall
+# operands, f32 and f64, offsets reaching past either edge.
 # ---------------------------------------------------------------------
 
-def test_dia_stream_kernel_matches_xla(rng):
-    from spalinalg_tpu.ops.kernels.dia_stream import dia_spmv
-
-    for (n, m, offs) in [(4096, 4096, [-1, 0, 1]),
-                         (5000, 5000, [-130, -1, 0, 7, 129, 257]),
-                         (300, 1000, [0, 5, 600]),
-                         (1000, 300, [-299, -1, 0, 200])]:
-        data = rng.normal(size=(len(offs), n)).astype(np.float32)
-        dia = DiaMatrix(n, m, offs, jnp.asarray(data))
-        x = rng.normal(size=m).astype(np.float32)
-        ref = np.asarray(dia._matvec_xla(jnp.asarray(x)))
-        y = np.asarray(dia_spmv(offs, jnp.asarray(data), jnp.asarray(x),
-                                n, m, interpret=True))
-        np.testing.assert_allclose(y, ref, atol=1e-4)
+def _scipy_dia(data, offs, n, m):
+    """scipy (column-aligned) dia_matrix of row-aligned ``data``."""
+    col = np.zeros((len(offs), m), data.dtype)
+    for k, o in enumerate(offs):
+        lo, hi = max(-o, 0), min(n, m - o)
+        col[k, lo + o:hi + o] = data[k, lo:hi]
+    return sps.dia_matrix((col, offs), shape=(n, m))
 
 
-def test_dia_stream_kernel_grads(rng):
-    from spalinalg_tpu.ops.kernels.dia_stream import dia_spmv
+def _zero_outside(data, offs, n, m):
+    for k, o in enumerate(offs):
+        data[k, :max(-o, 0)] = 0
+        data[k, min(n, m - o):] = 0
+    return data
 
+
+@pytest.mark.parametrize("n,m,offs", [
+    (4096, 4096, [-1, 0, 1]),
+    (5000, 5000, [-130, -1, 0, 7, 129, 257]),
+    (300, 1000, [0, 5, 600]),
+    (1000, 300, [-299, -1, 0, 200]),
+])
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5),
+                                       (np.float64, 1e-12)])
+def test_dia_spmv_matches_scipy(rng, n, m, offs, dtype, tol):
+    data = _zero_outside(rng.normal(size=(len(offs), n)).astype(dtype),
+                         offs, n, m)
+    dia = DiaMatrix(n, m, offs, jnp.asarray(data))
+    x = rng.normal(size=m).astype(dtype)
+    y = np.asarray(dia @ jnp.asarray(x))
+    assert y.dtype == dtype
+    ref = _scipy_dia(data.astype(np.float64), offs, n, m) @ x
+    np.testing.assert_allclose(y, ref, atol=tol * np.abs(ref).max())
+
+
+def test_dia_spmm_matches_scipy(rng):
+    n, offs = 700, [-3, 0, 2, 50]
+    data = _zero_outside(rng.normal(size=(4, n)), offs, n, n)
+    X = rng.normal(size=(n, 5))
+    Y = np.asarray(DiaMatrix(n, n, offs, jnp.asarray(data)) @ X)
+    np.testing.assert_allclose(Y, _scipy_dia(data, offs, n, n) @ X,
+                               atol=1e-12 * 10)
+
+
+def test_dia_grads_match_dense(rng):
     n, offs = 512, [-2, 0, 3]
-    data = jnp.asarray(rng.normal(size=(3, n)).astype(np.float32))
-    x = jnp.asarray(rng.normal(size=n).astype(np.float32))
-    g = jnp.asarray(rng.normal(size=n).astype(np.float32))
+    data = jnp.asarray(_zero_outside(rng.normal(size=(3, n)), offs, n, n))
+    x = jnp.asarray(rng.normal(size=n))
+    g = jnp.asarray(rng.normal(size=n))
 
     def f(d, xx):
-        return jnp.vdot(g, dia_spmv(offs, d, xx, n, n, interpret=True))
-
-    def f_ref(d, xx):
-        return jnp.vdot(g, DiaMatrix(n, n, offs, d)._matvec_xla(xx))
+        return jnp.vdot(g, DiaMatrix(n, n, offs, d) @ xx)
 
     gd, gx = jax.grad(f, argnums=(0, 1))(data, x)
-    rd, rx = jax.grad(f_ref, argnums=(0, 1))(data, x)
-    np.testing.assert_allclose(np.asarray(gd), np.asarray(rd), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(gx), np.asarray(rx), atol=1e-4)
+    A = _scipy_dia(np.asarray(data), offs, n, n).toarray()
+    np.testing.assert_allclose(np.asarray(gx), A.T @ np.asarray(g),
+                               atol=1e-12)
+    # d/d data[k, i] = g[i] * x[i + o_k] inside the matrix, 0 outside
+    for k, o in enumerate(offs):
+        lo, hi = max(-o, 0), min(n, n - o)
+        np.testing.assert_allclose(
+            np.asarray(gd)[k, lo:hi],
+            np.asarray(g)[lo:hi] * np.asarray(x)[lo + o:hi + o],
+            atol=1e-12)
 
 
-def test_dia_stream_eligibility_gates():
-    from spalinalg_tpu.ops.kernels.dia_stream import dia_stream_eligible
-
-    assert dia_stream_eligible([-1, 0, 1], 4096, 4096, np.float32)
-    assert not dia_stream_eligible([-1, 0, 1], 4096, 4096, np.float64)
-    # resident x beyond the VMEM budget
-    assert not dia_stream_eligible([0], 1 << 26, 1 << 26, np.float32)
+def test_dia_spmv_has_no_gather_or_scatter(rng):
+    """DIA SpMV is shifted slices and multiply-adds only: no index
+    traffic for XLA to serialise."""
+    offs = [-3, 0, 2]
+    dia = DiaMatrix(64, 64, offs, jnp.asarray(rng.normal(size=(3, 64))))
+    jaxpr = str(jax.make_jaxpr(lambda v: dia @ v)(jnp.ones(64)))
+    for prim in ("gather", "scatter"):
+        assert prim not in jaxpr

@@ -3,7 +3,7 @@ overwrite-on-insert, validation panics, merge ops."""
 
 import pytest
 
-from spalinalg_tpu import DokMatrix, IndexError_, ShapeError
+from spalinalg import DokMatrix, IndexError_, ShapeError
 
 
 class TestConstructors:

@@ -5,9 +5,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from spalinalg_tpu import BsrMatrix, CooMatrix, CsrMatrix
-from spalinalg_tpu.errors import ShapeError
-from spalinalg_tpu.linalg import eigsh, lanczos, svds
+from spalinalg import BsrMatrix, CooMatrix, CsrMatrix
+from spalinalg.errors import ShapeError
+from spalinalg.linalg import eigsh, lanczos, svds
 
 
 def _sym(rng, n, density=0.1, shift=0.0):
@@ -93,7 +93,7 @@ def test_validation(rng):
 class TestDistributed:
     def test_eigsh_dist_parity(self, rng):
         """eigsh on a DistCsr (first-class @ operand) matches single-chip."""
-        from spalinalg_tpu.parallel.partition import (
+        from spalinalg.parallel.partition import (
             make_row_mesh,
             partition_csr,
         )
@@ -106,12 +106,12 @@ class TestDistributed:
                                    atol=1e-8)
 
     def test_expm_dist_parity(self, rng):
-        from spalinalg_tpu.linalg import expm_multiply
-        from spalinalg_tpu.parallel.partition import (
+        from spalinalg.linalg import expm_multiply
+        from spalinalg.parallel.partition import (
             make_row_mesh,
             partition_csr,
         )
-        from spalinalg_tpu.parallel.spmv import shard_vector, unshard_vector
+        from spalinalg.parallel.spmv import shard_vector, unshard_vector
 
         A, d = _sym(rng, 64)
         A2 = CsrMatrix.from_coo(
@@ -130,7 +130,7 @@ class TestBlockLanczos:
     def test_resolves_degenerate_cluster(self, rng):
         """2-D grid Laplacian: lambda_{p,q} = lambda_{q,p} (multiplicity 2).
         Single-vector Lanczos finds one copy; block=2 finds both."""
-        from spalinalg_tpu.linalg import eigsh
+        from spalinalg.linalg import eigsh
 
         g = 12
         n = g * g
@@ -155,7 +155,7 @@ class TestBlockLanczos:
         np.testing.assert_allclose(vv.T @ vv, np.eye(4), atol=1e-7)
 
     def test_block_matches_single_on_simple_spectrum(self, rng):
-        from spalinalg_tpu.linalg import eigsh
+        from spalinalg.linalg import eigsh
 
         A, d = _sym(rng, 80)
         w1, _ = eigsh(A, k=3, which="LA", m=50)
@@ -165,7 +165,7 @@ class TestBlockLanczos:
         np.testing.assert_allclose(np.asarray(w2), ref, atol=1e-6)
 
     def test_basis_orthonormal(self, rng):
-        from spalinalg_tpu.linalg import block_lanczos
+        from spalinalg.linalg import block_lanczos
 
         A, d = _sym(rng, 64)
         V = np.asarray(block_lanczos(A, 10, 3))
@@ -176,7 +176,7 @@ class TestShiftInvert:
     def test_smallest_laplacian_modes_exact(self):
         """sigma=0 shift-invert: machine-precision smallest modes incl.
         the degenerate pair (the exterior-Lanczos slow case)."""
-        from spalinalg_tpu.linalg import eigsh
+        from spalinalg.linalg import eigsh
 
         g = 16
         n = g * g
@@ -204,7 +204,7 @@ class TestShiftInvert:
 
     def test_interior_shift(self, rng):
         """sigma inside the spectrum returns the eigenvalues nearest it."""
-        from spalinalg_tpu.linalg import eigsh
+        from spalinalg.linalg import eigsh
 
         A, d = _sym(rng, 60, shift=0.0)
         ew = np.linalg.eigvalsh(d)
@@ -233,7 +233,7 @@ class TestLobpcg:
 
     def test_smallest_cluster_2d_laplacian(self, rng):
         """Finds the smallest modes *including* the multiplicity-2 pair."""
-        from spalinalg_tpu.linalg import lobpcg
+        from spalinalg.linalg import lobpcg
 
         g = 12
         A = self._grid_laplacian(g)
@@ -248,7 +248,7 @@ class TestLobpcg:
         np.testing.assert_allclose(Xn.T @ Xn, np.eye(4), atol=1e-5)
 
     def test_largest(self, rng):
-        from spalinalg_tpu.linalg import lobpcg
+        from spalinalg.linalg import lobpcg
 
         A, d = _sym(rng, 96, shift=0.0)
         w, X, _ = lobpcg(A, k=3, which="LA", maxiter=80, seed=5)
@@ -257,7 +257,7 @@ class TestLobpcg:
 
     def test_preconditioned_converges_faster(self, rng):
         """IC(0) preconditioning reduces the residual at equal maxiter."""
-        from spalinalg_tpu.linalg import ic0, lobpcg
+        from spalinalg.linalg import ic0, lobpcg
 
         A = self._grid_laplacian(14)
         M = ic0(A)
@@ -266,7 +266,7 @@ class TestLobpcg:
         assert float(np.max(np.asarray(r_p))) < float(np.max(np.asarray(r_u)))
 
     def test_callable_preconditioner_and_x0(self, rng):
-        from spalinalg_tpu.linalg import lobpcg
+        from spalinalg.linalg import lobpcg
 
         A, d = _sym(rng, 60, shift=8.0)   # SPD-ish via diagonal shift
         diag = np.asarray([d[i, i] for i in range(60)])
@@ -277,7 +277,7 @@ class TestLobpcg:
         np.testing.assert_allclose(np.asarray(w), ref, atol=1e-4)
 
     def test_validation(self, rng):
-        from spalinalg_tpu.linalg import lobpcg
+        from spalinalg.linalg import lobpcg
 
         A, _ = _sym(rng, 30)
         with pytest.raises(ValueError):
@@ -295,8 +295,8 @@ class TestLobpcg:
 
     def test_dist_parity(self, rng):
         """lobpcg on a DistCsr matches the single-chip result."""
-        from spalinalg_tpu.linalg import lobpcg
-        from spalinalg_tpu.parallel.partition import (make_row_mesh,
+        from spalinalg.linalg import lobpcg
+        from spalinalg.parallel.partition import (make_row_mesh,
                                                       partition_csr)
 
         A = self._grid_laplacian(12)
@@ -312,8 +312,8 @@ class TestLobpcg:
         assert np.all(np.asarray(X8)[n:] == 0.0)
 
     def test_dist_rejects_single_chip_preconditioner(self, rng):
-        from spalinalg_tpu.linalg import ic0, lobpcg
-        from spalinalg_tpu.parallel.partition import (make_row_mesh,
+        from spalinalg.linalg import ic0, lobpcg
+        from spalinalg.parallel.partition import (make_row_mesh,
                                                       partition_csr)
 
         A = self._grid_laplacian(8)

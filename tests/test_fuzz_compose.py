@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sps
 
-from spalinalg_tpu.io import from_scipy
+from spalinalg.io import from_scipy
 
 # each step: (name, framework_fn(mat), scipy_fn(smat))
 # mat is CsrMatrix, smat is scipy csr; both stay CSR-shaped after each step
@@ -23,7 +23,7 @@ _STEPS = [
     ("square", lambda m: m * m if m.nrows == m.ncols else m,
      lambda s: s @ s if s.shape[0] == s.shape[1] else s),
     ("scale", lambda m: m * 0.5, lambda s: s * 0.5),
-    ("rowslice", lambda m: __import__("spalinalg_tpu").row_slice(
+    ("rowslice", lambda m: __import__("spalinalg").row_slice(
         m, 0, max(1, m.nrows // 2)),
      lambda s: s[: max(1, s.shape[0] // 2)]),
 ]
@@ -67,7 +67,7 @@ def test_spgemm_chain_vs_scipy(seed):
 @pytest.mark.parametrize("seed", range(4))
 def test_solver_roundtrip_fuzz(seed):
     """spsolve(A, A @ x) == x for random diagonally-dominant systems."""
-    from spalinalg_tpu.linalg import spsolve
+    from spalinalg.linalg import spsolve
 
     rng = np.random.default_rng(3000 + seed)
     n = int(rng.integers(10, 40))

@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 import scipy.sparse as sps
 
-from spalinalg_tpu.errors import IndexError_, ShapeError
-from spalinalg_tpu.io import from_scipy
-from spalinalg_tpu.ops.indexing import (
+from spalinalg.errors import IndexError_, ShapeError
+from spalinalg.io import from_scipy
+from spalinalg.ops.indexing import (
     getcol,
     getrow,
     row_slice,

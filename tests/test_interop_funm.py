@@ -6,10 +6,10 @@ import pytest
 import jax.numpy as jnp
 from jax.experimental import sparse as jsparse
 
-from spalinalg_tpu import BsrMatrix, CooMatrix, CsrMatrix, DokMatrix
-from spalinalg_tpu.errors import ShapeError
-from spalinalg_tpu.io import from_bcoo, to_bcoo, to_bcsr
-from spalinalg_tpu.linalg import expm_multiply
+from spalinalg import BsrMatrix, CooMatrix, CsrMatrix, DokMatrix
+from spalinalg.errors import ShapeError
+from spalinalg.io import from_bcoo, to_bcoo, to_bcsr
+from spalinalg.linalg import expm_multiply
 
 
 def _rand_csr(rng, n, m, density=0.1):

@@ -5,8 +5,8 @@ import pytest
 
 import jax
 
-from spalinalg_tpu import CooMatrix, CsrMatrix
-from spalinalg_tpu.linalg import bicgstab, cg, gmres
+from spalinalg import CooMatrix, CsrMatrix
+from spalinalg.linalg import bicgstab, cg, gmres
 
 
 def _nonsym(rng, n, density=0.05, shift=4.0):
@@ -95,14 +95,14 @@ def test_x0_warm_start(rng):
 class TestDistributed:
     @pytest.fixture
     def mesh(self):
-        from spalinalg_tpu.parallel.partition import make_row_mesh
+        from spalinalg.parallel.partition import make_row_mesh
 
         return make_row_mesh(8)
 
     @pytest.mark.parametrize("solver", [gmres, bicgstab])
     def test_dist_parity(self, rng, mesh, solver):
-        from spalinalg_tpu.parallel.partition import partition_csr
-        from spalinalg_tpu.parallel.spmv import shard_vector, unshard_vector
+        from spalinalg.parallel.partition import partition_csr
+        from spalinalg.parallel.spmv import shard_vector, unshard_vector
 
         n = 96
         A = _nonsym(rng, n)

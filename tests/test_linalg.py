@@ -7,8 +7,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from spalinalg_tpu import CooMatrix, CsrMatrix
-from spalinalg_tpu.linalg import (
+from spalinalg import CooMatrix, CsrMatrix
+from spalinalg.linalg import (
     bandwidth,
     band_cholesky_factor,
     band_cholesky_solve,
@@ -239,8 +239,8 @@ class TestCg:
 
     def test_cg_distributed_parity(self):
         import jax
-        from spalinalg_tpu.parallel.partition import make_row_mesh, partition_csr
-        from spalinalg_tpu.parallel.spmv import shard_vector, unshard_vector
+        from spalinalg.parallel.partition import make_row_mesh, partition_csr
+        from spalinalg.parallel.spmv import shard_vector, unshard_vector
 
         n = 96
         a = laplacian_2d(int(np.sqrt(n) + 0.5)) if False else laplacian_1d(n)
@@ -276,8 +276,8 @@ class TestPreconditionedCg:
         assert int(pre.iterations) <= int(plain.iterations)
 
     def test_jacobi_cg_distributed(self):
-        from spalinalg_tpu.parallel.partition import make_row_mesh, partition_csr
-        from spalinalg_tpu.parallel.spmv import shard_vector, unshard_vector
+        from spalinalg.parallel.partition import make_row_mesh, partition_csr
+        from spalinalg.parallel.spmv import shard_vector, unshard_vector
 
         n = 96
         a = laplacian_1d(n)

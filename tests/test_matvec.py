@@ -7,7 +7,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from spalinalg_tpu import (
+from spalinalg import (
     BsrMatrix,
     CooMatrix,
     CscMatrix,
@@ -15,7 +15,7 @@ from spalinalg_tpu import (
     ShapeError,
     csr_matvec,
 )
-from spalinalg_tpu.ops.reduction import build_segment_reduce_plan, segment_reduce
+from spalinalg.ops.reduction import build_segment_reduce_plan, segment_reduce
 
 
 def _random_csr(rng, n, m, density=0.1, dtype=np.float64):

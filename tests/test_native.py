@@ -4,21 +4,21 @@ agree exactly with its NumPy reference implementation."""
 import numpy as np
 import pytest
 
-from spalinalg_tpu.native import lib as native
+from spalinalg.native import lib as native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library unavailable (no g++?)"
 )
 
-from spalinalg_tpu import CooMatrix, CsrMatrix  # noqa: E402
-from spalinalg_tpu.convert.engine import compress_host  # noqa: E402
-from spalinalg_tpu.linalg.ordering import (  # noqa: E402
+from spalinalg import CooMatrix, CsrMatrix  # noqa: E402
+from spalinalg.convert.engine import compress_host  # noqa: E402
+from spalinalg.linalg.ordering import (  # noqa: E402
     level_schedule as np_levels,
     rcm_ordering,
     bandwidth,
     # permute via cholesky helper
 )
-from spalinalg_tpu.linalg.cholesky import permute_csr  # noqa: E402
+from spalinalg.linalg.cholesky import permute_csr  # noqa: E402
 
 
 def _random_triplets(rng, n, m, k):
@@ -85,7 +85,7 @@ class TestLevels:
 
 class TestSpgemmSymbolic:
     def test_parity_with_python_plan(self, rng):
-        from spalinalg_tpu.ops.spgemm import spgemm_plan
+        from spalinalg.ops.spgemm import spgemm_plan
 
         n = 30
         da = np.where(rng.random((n, n)) < 0.2, rng.normal(size=(n, n)), 0)

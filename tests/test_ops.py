@@ -7,7 +7,7 @@ import pytest
 
 import jax
 
-from spalinalg_tpu import CooMatrix, CscMatrix, CsrMatrix, ShapeError
+from spalinalg import CooMatrix, CscMatrix, CsrMatrix, ShapeError
 
 
 def dense(mat):
@@ -171,35 +171,9 @@ class TestSpgemm:
             seg = ind[ptr[r]:ptr[r + 1]]
             assert np.all(np.diff(seg) > 0)
 
-    def test_tpu_numeric_pair_route_formulation(self, rng):
-        """The TPU numeric path (paired routed-gather kernel) must agree
-        with scipy. Exercised in interpret mode on CPU (the compiled
-        dispatch requires TPU)."""
-        import scipy.sparse as sps
-
-        from spalinalg_tpu import spgemm_plan
-        from spalinalg_tpu.ops.kernels.pair_route import pair_route_apply
-
-        A = sps.random(300, 250, 0.04, random_state=3).tocsr()
-        B = sps.random(250, 280, 0.04, random_state=4).tocsr()
-        A.sort_indices(), B.sort_indices()
-        a = CsrMatrix(300, 250, A.indptr, A.indices,
-                      A.data.astype(np.float32))
-        b = CsrMatrix(250, 280, B.indptr, B.indices,
-                      B.data.astype(np.float32))
-        plan = spgemm_plan(a, b)
-        pr = plan._tpu_numeric(a.nnz, b.nnz)
-        assert pr is not None
-        vals = np.asarray(pair_route_apply(
-            pr, a.values, b.values, interpret=True)[: plan.n_out])
-        C = (A @ B).tocsr()
-        C.sort_indices()
-        np.testing.assert_allclose(vals, C.data.astype(np.float32),
-                                   rtol=2e-4, atol=2e-5)
-
     def test_plan_reuse_numeric_only(self):
         # symbolic/numeric split: same structure, new values
-        from spalinalg_tpu import spgemm_apply, spgemm_plan
+        from spalinalg import spgemm_apply, spgemm_plan
         a = CsrMatrix(2, 2, [0, 1, 2], [0, 1], [2.0, 3.0])
         b = CsrMatrix(2, 2, [0, 1, 2], [1, 0], [4.0, 5.0])
         plan = spgemm_plan(a, b)

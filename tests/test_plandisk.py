@@ -1,76 +1,76 @@
 """On-disk plan persistence (`utils/plandisk.py`).
 
-ADVICE r4 medium: the store must be a NON-EXECUTABLE format (the old
-pickle path executed arbitrary code from a shared/tampered cache dir),
-keyed on structure only, with a size cap + LRU eviction.
+The store must be a NON-EXECUTABLE format (a pickle would execute
+arbitrary code from a shared/tampered cache dir), keyed on structure
+only, with a size cap + LRU eviction.
 """
 
 import os
 import zipfile
 
 import numpy as np
-import pytest
 
 import jax.numpy as jnp
 
-from spalinalg_tpu.utils import plandisk
+from spalinalg.utils import plandisk
 
 
-def _random_csr_arrays(rng, n=512, row_nnz=8):
-    colind = np.sort(rng.integers(0, n, size=(n, row_nnz)), axis=1)
-    rowptr = np.arange(n + 1, dtype=np.int64) * row_nnz
-    values = rng.normal(size=n * row_nnz).astype(np.float32)
-    return rowptr, colind.reshape(-1).astype(np.int64), values
+def _laplacian_2d(k):
+    """5-point Laplacian on a k x k grid as a CsrMatrix (f32)."""
+    import scipy.sparse as sps
+
+    from spalinalg import CsrMatrix
+
+    t = sps.diags([-1.0, 4.0, -1.0], [-1, 0, 1], shape=(k, k))
+    A = (sps.kron(sps.eye(k), t) + sps.kron(
+        sps.diags([-1.0, -1.0], [-1, 1], shape=(k, k)), sps.eye(k))).tocsr()
+    A.sort_indices()
+    return CsrMatrix(k * k, k * k, A.indptr, A.indices,
+                     A.data.astype(np.float32))
 
 
-def test_route_plan_npz_roundtrip(rng, tmp_path):
-    from spalinalg_tpu.ops.kernels.csr_route import (build_route_plan,
-                                                     simulate_route)
+def _symbolic(csr):
+    from spalinalg.linalg.cholesky import _supernodal_symbolic_cached
 
-    ptr, col, vals = _random_csr_arrays(rng)
-    plan = build_route_plan(ptr, col, vals, 512, 512)
-    x = rng.normal(size=512).astype(np.float32)
-    ref = simulate_route(plan, x)
+    return _supernodal_symbolic_cached(csr, True)
+
+
+def test_supernodal_plan_npz_roundtrip(tmp_path, monkeypatch):
+    monkeypatch.setenv("SPALINALG_PLAN_CACHE", "off")
+    perm, plan = _symbolic(_laplacian_2d(10))
 
     path = str(tmp_path / "plan.npz")
-    host = plandisk._to_host(plan, ("FP",), ("spill_plan",))
-    plandisk._save(path, host)
+    plandisk._save(path, (perm, plan))
     # the file is a plain npz zip archive, not a pickle
     assert zipfile.is_zipfile(path)
     with np.load(path, allow_pickle=False) as z:
         assert "__meta__" in z.files
 
-    back = plandisk._load(path)
-    back = plandisk._to_device(back, ("FP",), ("spill_plan",))
-    assert back.K == plan.K and back.T == plan.T and back.S == plan.S
-    # values are NOT persisted (structure-only store)
-    assert back.default_values is None
-    got = simulate_route(back, x, values=vals)
-    np.testing.assert_allclose(got, ref, rtol=1e-6)
+    perm2, back = plandisk._load(path)
+    np.testing.assert_array_equal(perm2, perm)
+    assert type(back) is type(plan)
+    assert len(back.levels) == len(plan.levels)
+    for l0, l1 in zip(plan.levels, back.levels):
+        assert len(l0) == len(l1)
+        for b0, b1 in zip(l0, l1):
+            assert (b0.nsp, b0.mup) == (b1.nsp, b1.mup)
+            np.testing.assert_array_equal(b0.sids, b1.sids)
+            np.testing.assert_array_equal(b0.a_dst, b1.a_dst)
+            np.testing.assert_array_equal(b0.a_src, b1.a_src)
+            assert len(b0.ext) == len(b1.ext)
+    np.testing.assert_array_equal(back.sym.snode_ptr, plan.sym.snode_ptr)
 
 
-def test_pair_plan_npz_roundtrip(rng, tmp_path):
-    from spalinalg_tpu.ops.kernels.pair_route import build_pair_route_plan
-
-    n_terms = 4096
-    gid = np.sort(rng.integers(0, 512, size=n_terms))
-    ai = rng.integers(0, 2048, size=n_terms)
-    bi = rng.integers(0, 2048, size=n_terms)
-    plan = build_pair_route_plan(gid, ai, bi, 512, 2048, 2048)
-    path = str(tmp_path / "pair.npz")
-    host = plandisk._to_host(plan, ("FPP",), ())
-    plandisk._save(path, host)
-    back = plandisk._load(path)
-    assert back.n_terms == plan.n_terms
-    assert back.K == plan.K and back.T == plan.T
-    assert len(back.retry) == len(plan.retry)
-    for (s0, g0), (s1, g1) in zip(plan.retry, back.retry):
-        assert s0 == s1
-        np.testing.assert_array_equal(np.asarray(g0), np.asarray(g1))
-    for f in ("FPP", "page_slice_a", "page_slice_b", "page_route",
-              "page_t", "page_first", "page_last"):
-        np.testing.assert_array_equal(np.asarray(getattr(plan, f)),
-                                      np.asarray(getattr(back, f)))
+def test_structure_key_tracks_version_and_structure(monkeypatch):
+    a = (np.arange(5), np.array([1, 2]))
+    k0 = plandisk._structure_key("snchol", a, (5, 1))
+    assert plandisk._structure_key("snchol", a, (5, 1)) == k0
+    assert plandisk._structure_key("snchol", a, (5, 0)) != k0
+    assert plandisk._structure_key(
+        "snchol", (np.arange(5), np.array([1, 3])), (5, 1)) != k0
+    # a layout change (version bump) never serves an old file
+    monkeypatch.setattr(plandisk, "_VERSION", plandisk._VERSION + 1)
+    assert plandisk._structure_key("snchol", a, (5, 1)) != k0
 
 
 def test_load_or_build_uses_cache_and_updates_mtime(rng, tmp_path,
@@ -91,34 +91,31 @@ def test_load_or_build_uses_cache_and_updates_mtime(rng, tmp_path,
     # register the test class in the allowlist for this test only
     monkeypatch.setattr(
         plandisk, "_plan_classes",
-        lambda: {"_FakePlan": _FakePlan, "RoutePlan": _FakePlan})
+        lambda: {"_FakePlan": _FakePlan})
 
     def build():
         calls.append(1)
         return _FakePlan(a=np.arange(5, dtype=np.int64), k=7)
 
-    p1 = plandisk.load_or_build("t", (np.arange(3),), (1,), build,
-                                jax_fields=())
-    p2 = plandisk.load_or_build("t", (np.arange(3),), (1,), build,
-                                jax_fields=())
+    p1 = plandisk.load_or_build("t", (np.arange(3),), (1,), build)
+    p2 = plandisk.load_or_build("t", (np.arange(3),), (1,), build)
     assert len(calls) == 1  # second came from disk
     assert p2.k == 7
     np.testing.assert_array_equal(np.asarray(p2.a), np.arange(5))
     # a different structure key rebuilds
-    plandisk.load_or_build("t", (np.arange(4),), (1,), build,
-                           jax_fields=())
+    plandisk.load_or_build("t", (np.arange(4),), (1,), build)
     assert len(calls) == 2
 
 
 def test_supernodal_symbolic_roundtrip(rng, tmp_path, monkeypatch):
     """(perm, SupernodalPlan) persists through the npz store and the
-    reloaded plan factors to the same panels (VERDICT r4 #6)."""
+    reloaded plan factors to the same panels."""
     monkeypatch.setenv("SPALINALG_PLAN_CACHE", str(tmp_path))
     import jax
 
-    from spalinalg_tpu import CsrMatrix
-    from spalinalg_tpu.dtypes import INDEX_DTYPE
-    from spalinalg_tpu.linalg.cholesky import cholesky, cholesky_solve
+    from spalinalg import CsrMatrix
+    from spalinalg.dtypes import INDEX_DTYPE
+    from spalinalg.linalg.cholesky import cholesky, cholesky_solve
 
     k = 12
     n = k * k
@@ -187,9 +184,9 @@ def test_corrupt_cache_falls_back_to_rebuild(tmp_path, monkeypatch):
         calls.append(1)
         return _FakePlan(k=3)
 
-    plandisk.load_or_build("c", (), (9,), build, jax_fields=())
+    plandisk.load_or_build("c", (), (9,), build)
     # corrupt the stored file
     (fname,) = [f for f in tmp_path.iterdir()]
     fname.write_bytes(b"not an npz")
-    p = plandisk.load_or_build("c", (), (9,), build, jax_fields=())
+    p = plandisk.load_or_build("c", (), (9,), build)
     assert p.k == 3 and len(calls) == 2

@@ -7,9 +7,9 @@ import pytest
 
 import jax
 
-from spalinalg_tpu import CooMatrix, CsrMatrix
-from spalinalg_tpu.errors import ShapeError, StructureError
-from spalinalg_tpu.linalg import bicgstab, cg, gmres, ic0, ilu0
+from spalinalg import CooMatrix, CsrMatrix
+from spalinalg.errors import ShapeError, StructureError
+from spalinalg.linalg import bicgstab, cg, gmres, ic0, ilu0
 
 
 def _laplacian_2d(g):
@@ -141,8 +141,8 @@ def test_validation(rng):
 
 
 def test_dist_rejects_factorization_precond(rng):
-    from spalinalg_tpu.parallel.partition import make_row_mesh, partition_csr
-    from spalinalg_tpu.parallel.spmv import shard_vector
+    from spalinalg.parallel.partition import make_row_mesh, partition_csr
+    from spalinalg.parallel.spmv import shard_vector
 
     A = _nonsym(rng, 64)
     dist = partition_csr(A, make_row_mesh(8))
@@ -153,7 +153,7 @@ def test_dist_rejects_factorization_precond(rng):
 
 class TestChebyshev:
     def test_approximates_inverse(self):
-        from spalinalg_tpu.linalg import chebyshev
+        from spalinalg.linalg import chebyshev
 
         A = _laplacian_2d(8)
         M = chebyshev(A, degree=40, lmin=0.1, lmax=8.0)
@@ -164,7 +164,7 @@ class TestChebyshev:
         assert np.linalg.norm(z - ref) < 0.05 * np.linalg.norm(ref)
 
     def test_accelerates_cg(self):
-        from spalinalg_tpu.linalg import chebyshev
+        from spalinalg.linalg import chebyshev
 
         A = _laplacian_2d(16)
         b = np.ones(A.nrows)
@@ -180,12 +180,12 @@ class TestChebyshev:
         """Chebyshev is pure SpMV -> works on DistCsr operands directly."""
         import jax as _jax
 
-        from spalinalg_tpu.linalg import chebyshev
-        from spalinalg_tpu.parallel.partition import (
+        from spalinalg.linalg import chebyshev
+        from spalinalg.parallel.partition import (
             make_row_mesh,
             partition_csr,
         )
-        from spalinalg_tpu.parallel.spmv import shard_vector, unshard_vector
+        from spalinalg.parallel.spmv import shard_vector, unshard_vector
 
         A = _laplacian_2d(8)
         n = A.nrows
@@ -201,7 +201,7 @@ class TestChebyshev:
         np.testing.assert_allclose(x, ref, atol=1e-6)
 
     def test_validation(self):
-        from spalinalg_tpu.linalg import chebyshev
+        from spalinalg.linalg import chebyshev
 
         A = _laplacian_2d(4)
         with pytest.raises(ValueError):
@@ -214,12 +214,12 @@ class TestNativeParity:
     """Native C++ ilu0/ic0 sweeps vs the pure-Python reference path."""
 
     def test_ilu0_native_matches_python(self, rng):
-        from spalinalg_tpu.native import lib as native
+        from spalinalg.native import lib as native
 
         if not native.available():
             pytest.skip("native library unavailable")
         A = _nonsym(rng, 48)
-        import spalinalg_tpu.linalg.precond as P
+        import spalinalg.linalg.precond as P
 
         ref = ilu0(A)                 # native path
         orig = native.available
@@ -236,7 +236,7 @@ class TestNativeParity:
                                    atol=1e-12)
 
     def test_ic0_native_matches_python(self, rng):
-        from spalinalg_tpu.native import lib as native
+        from spalinalg.native import lib as native
 
         if not native.available():
             pytest.skip("native library unavailable")

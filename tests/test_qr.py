@@ -8,9 +8,9 @@ but implements none, so dense LAPACK semantics are the contract.
 import numpy as np
 import pytest
 
-from spalinalg_tpu import CooMatrix, CsrMatrix
-from spalinalg_tpu.errors import ShapeError
-from spalinalg_tpu.linalg import (
+from spalinalg import CooMatrix, CsrMatrix
+from spalinalg.errors import ShapeError
+from spalinalg.linalg import (
     lstsq,
     qr,
     qr_q_apply,

@@ -1,5 +1,5 @@
 """1:1 mapping of the reference's 54 ``#[should_panic]`` validation tests
-(VERDICT r1 item 8; SURVEY §4 test-porting contract (a): panics → raised
+(SURVEY §4 test-porting contract (a): panics → raised
 exceptions, checked host-side outside jit).
 
 Each table row is (reference test name, reference location, callable).
@@ -22,13 +22,13 @@ Mapping notes (documented divergences):
 
 import pytest
 
-from spalinalg_tpu import (
+from spalinalg import (
     CooMatrix,
     CscMatrix,
     CsrMatrix,
     DokMatrix,
 )
-from spalinalg_tpu.errors import SpalinalgError
+from spalinalg.errors import SpalinalgError
 
 # (name, reference evidence, thunk)
 CASES = [

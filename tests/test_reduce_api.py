@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 import scipy.sparse as sps
 
-from spalinalg_tpu import CooMatrix, CsrMatrix
-from spalinalg_tpu.errors import ShapeError
-from spalinalg_tpu.io import from_scipy
-from spalinalg_tpu.ops.reduce_api import (
+from spalinalg import CooMatrix, CsrMatrix
+from spalinalg.errors import ShapeError
+from spalinalg.io import from_scipy
+from spalinalg.ops.reduce_api import (
     diagonal,
     mat_mean,
     mat_sum,

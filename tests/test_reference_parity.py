@@ -12,8 +12,8 @@ import pytest
 
 sps = pytest.importorskip("scipy.sparse")
 
-from spalinalg_tpu import CooMatrix, CscMatrix, CsrMatrix
-from spalinalg_tpu.io import from_scipy, to_scipy
+from spalinalg import CooMatrix, CscMatrix, CsrMatrix
+from spalinalg.io import from_scipy, to_scipy
 
 
 def _rand_sps(rng, n, m, density):
@@ -91,7 +91,7 @@ def test_coo_dedup_matches_scipy_sum_duplicates(rng):
 
 
 def test_solve_parity(rng):
-    from spalinalg_tpu.linalg import cholesky, cholesky_solve
+    from spalinalg.linalg import cholesky, cholesky_solve
 
     g = sps.diags([-1, 4, -1], [-1, 0, 1], shape=(48, 48)).tocsr()
     a = from_scipy(g)

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from spalinalg_tpu import CooMatrix, CsrMatrix
-from spalinalg_tpu.errors import ShapeError
-from spalinalg_tpu.linalg import factorized, is_symmetric, spsolve
+from spalinalg import CooMatrix, CsrMatrix
+from spalinalg.errors import ShapeError
+from spalinalg.linalg import factorized, is_symmetric, spsolve
 
 
 def _spd(rng, n):

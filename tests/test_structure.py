@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import pytest
 import scipy.sparse as sps
 
-from spalinalg_tpu import (
+from spalinalg import (
     CooMatrix,
     CsrMatrix,
     bmat,
@@ -15,8 +15,8 @@ from spalinalg_tpu import (
     kron,
     vstack,
 )
-from spalinalg_tpu.errors import ShapeError
-from spalinalg_tpu.io import from_scipy, to_scipy
+from spalinalg.errors import ShapeError
+from spalinalg.io import from_scipy, to_scipy
 
 
 def _rand(rng, n, m, density=0.3):
@@ -94,7 +94,7 @@ def test_validation(rng):
 
 class TestConstruct:
     def test_diags_matches_scipy(self, rng):
-        from spalinalg_tpu import diags
+        from spalinalg import diags
 
         dvals = [rng.normal(size=5), rng.normal(size=6), rng.normal(size=4)]
         got = diags(dvals, offsets=[-1, 0, 2], shape=(6, 6))
@@ -103,7 +103,7 @@ class TestConstruct:
                                    atol=1e-12)
 
     def test_diags_scalar_broadcast(self):
-        from spalinalg_tpu import diags
+        from spalinalg import diags
 
         got = diags([-1.0, 2.0, -1.0], offsets=[-1, 0, 1], shape=(5, 5))
         ref = sps.diags([-1.0, 2.0, -1.0], offsets=[-1, 0, 1],
@@ -112,7 +112,7 @@ class TestConstruct:
                                    atol=1e-12)
 
     def test_diags_rectangular(self):
-        from spalinalg_tpu import diags
+        from spalinalg import diags
 
         got = diags([1.0, 2.0], offsets=[0, 1], shape=(3, 5))
         ref = sps.diags([1.0, 2.0], offsets=[0, 1], shape=(3, 5)).toarray()
@@ -120,7 +120,7 @@ class TestConstruct:
                                    atol=1e-12)
 
     def test_diags_single(self):
-        from spalinalg_tpu import diags
+        from spalinalg import diags
 
         got = diags(np.array([1.0, 2.0, 3.0]))
         assert got.shape == (3, 3)
@@ -128,7 +128,7 @@ class TestConstruct:
                                    np.diag([1.0, 2.0, 3.0]), atol=1e-12)
 
     def test_sprandom(self):
-        from spalinalg_tpu import sprandom
+        from spalinalg import sprandom
 
         r = sprandom(50, 60, density=0.1, seed=3)
         assert r.shape == (50, 60)
@@ -138,8 +138,8 @@ class TestConstruct:
         assert np.count_nonzero(d) == r.nnz
 
     def test_construct_validation(self):
-        from spalinalg_tpu import diags, sprandom
-        from spalinalg_tpu.errors import ShapeError
+        from spalinalg import diags, sprandom
+        from spalinalg.errors import ShapeError
 
         with pytest.raises(ShapeError):
             diags([1.0], offsets=[9], shape=(3, 3))
@@ -164,7 +164,7 @@ class TestMatrixPower:
 
     def test_validation(self, rng):
         a, _ = _rand(rng, 3, 5)
-        from spalinalg_tpu.errors import ShapeError
+        from spalinalg.errors import ShapeError
 
         with pytest.raises(ShapeError):
             a ** 2
@@ -179,8 +179,8 @@ class TestTrilTriu:
     def test_matches_scipy(self, rng):
         import scipy.sparse as sps
 
-        from spalinalg_tpu import CsrMatrix, tril, triu
-        from spalinalg_tpu.dtypes import INDEX_DTYPE
+        from spalinalg import CsrMatrix, tril, triu
+        from spalinalg.dtypes import INDEX_DTYPE
 
         A = sps.random(17, 23, 0.2, random_state=5).tocsr()
         A.sort_indices()
@@ -198,7 +198,7 @@ class TestTrilTriu:
                 sps.triu(A, k).toarray(), atol=0)
 
     def test_coo_duplicates_dedup_summed(self):
-        from spalinalg_tpu import CooMatrix, tril
+        from spalinalg import CooMatrix, tril
 
         coo = CooMatrix.with_entries(
             2, 2, [(1, 0, 1.5), (1, 0, 2.5), (0, 1, 9.0)])
@@ -211,9 +211,9 @@ class TestTrilTriu:
         """tril(A,-1) + diagonal + triu(A,1) == A."""
         import scipy.sparse as sps
 
-        from spalinalg_tpu import CsrMatrix, tril, triu
-        from spalinalg_tpu.dtypes import INDEX_DTYPE
-        from spalinalg_tpu.ops.construct import diags
+        from spalinalg import CsrMatrix, tril, triu
+        from spalinalg.dtypes import INDEX_DTYPE
+        from spalinalg.ops.construct import diags
 
         A = sps.random(20, 20, 0.3, random_state=9).tocsr()
         A.sort_indices()

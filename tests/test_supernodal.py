@@ -1,4 +1,4 @@
-"""General-sparsity supernodal Cholesky (VERDICT r1 item 3).
+"""General-sparsity supernodal Cholesky.
 
 The reference documents factorization intent only
 (/root/reference/src/csr.rs:16-17); this is north-star N5's general
@@ -14,10 +14,10 @@ from scipy.sparse.linalg import spsolve
 
 import jax.numpy as jnp
 
-from spalinalg_tpu import CsrMatrix
-from spalinalg_tpu.dtypes import INDEX_DTYPE
-from spalinalg_tpu.linalg.cholesky import cholesky, cholesky_solve
-from spalinalg_tpu.linalg.symbolic import (
+from spalinalg import CsrMatrix
+from spalinalg.dtypes import INDEX_DTYPE
+from spalinalg.linalg.cholesky import cholesky, cholesky_solve
+from spalinalg.linalg.symbolic import (
     amd_ordering,
     chol_symbolic,
     etree,
@@ -187,12 +187,12 @@ class TestSupernodalCholesky:
 def test_sharded_factor_solve_parity(rng):
     """Distributed numeric factorization (fronts sharded over an
     8-device mesh, GSPMD collectives for the extend-add) must match
-    the single-device factor and solve exactly (VERDICT r3 missing #4).
+    the single-device factor and solve exactly.
     """
     from jax.sharding import Mesh
 
-    from spalinalg_tpu.linalg.cholesky import cholesky, permute_csr
-    from spalinalg_tpu.linalg import supernodal as sn
+    from spalinalg.linalg.cholesky import cholesky, permute_csr
+    from spalinalg.linalg import supernodal as sn
 
     k = 20
     n = k * k
@@ -229,3 +229,20 @@ def test_sharded_factor_solve_parity(rng):
     x1 = np.asarray(sn.supernodal_solve(f1, jnp.asarray(b)))
     x2 = np.asarray(sn.supernodal_solve(f2, jnp.asarray(b)))
     np.testing.assert_allclose(x1, x2, rtol=1e-5, atol=1e-6)
+
+
+def test_table_views_find_each_plan_array_by_identity():
+    """The flat index-table argument is sliced by which plan array is
+    asked for, not by the order of the asks: reversed order gives the
+    same tables, and an array that is not in the plan is refused."""
+    from spalinalg.linalg import supernodal as sn
+
+    A = lap3d(4)
+    fac = cholesky(_csr(A), method="supernodal")
+    plan = fac.snf.plan
+    arrays = list(sn._plan_index_arrays(plan))
+    cv = sn._table_views(plan, sn._plan_tables(plan))
+    for a in reversed(arrays):
+        np.testing.assert_array_equal(np.asarray(cv(a)), np.asarray(a))
+    with pytest.raises(KeyError):
+        cv(np.zeros(3, np.int64))

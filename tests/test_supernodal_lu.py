@@ -1,4 +1,4 @@
-"""General-sparsity supernodal LU (VERDICT r2 missing #1).
+"""General-sparsity supernodal LU.
 
 The reference names lu as intended scope only
 (/root/reference/src/csr.rs:16-17, csc.rs:16-17); this is north-star
@@ -13,9 +13,9 @@ from scipy.sparse.linalg import spsolve
 
 import jax.numpy as jnp
 
-from spalinalg_tpu import CsrMatrix
-from spalinalg_tpu.dtypes import INDEX_DTYPE
-from spalinalg_tpu.linalg.lu import lu, lu_solve
+from spalinalg import CsrMatrix
+from spalinalg.dtypes import INDEX_DTYPE
+from spalinalg.linalg.lu import lu, lu_solve
 
 
 def convdiff2d(k, c=0.4):
@@ -137,22 +137,6 @@ class TestSupernodalLu:
         xref = spsolve(A.tocsc(), b.astype(np.float64))
         np.testing.assert_allclose(x, xref, rtol=2e-3,
                                    atol=2e-3 * np.abs(xref).max())
-
-    def test_batched_pivoted_lu_reconstructs(self, rng):
-        # the basic-ops LU used for f64-on-TPU: P A = L U, batched
-        import jax
-        import jax.numpy as jnp
-        from spalinalg_tpu.linalg.supernodal_lu import _batched_pivoted_lu
-
-        A = jnp.asarray(rng.normal(size=(5, 12, 12)))
-        lu_m, perm = _batched_pivoted_lu(A)
-        L = jnp.tril(lu_m, -1) + jnp.eye(12, dtype=A.dtype)[None]
-        U = jnp.triu(lu_m)
-        PA = jnp.take_along_axis(A, perm[:, :, None], axis=1)
-        np.testing.assert_allclose(np.asarray(PA), np.asarray(L @ U),
-                                   rtol=1e-10, atol=1e-12)
-        # partial pivoting: unit multipliers bounded by 1
-        assert float(jnp.max(jnp.abs(jnp.tril(lu_m, -1)))) <= 1.0 + 1e-12
 
     def test_small_magnitude_values_not_corrupted_by_perturb(self, rng):
         # regression: the pivot-lift threshold must scale with the
